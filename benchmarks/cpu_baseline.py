@@ -3,9 +3,9 @@
 weak #3: give the speedup a hardware denominator).
 
 Runs bench.py's exact flagship configuration (2-D Gaussian, nlive=1000)
-with JAX pinned to the host CPU backend, so "TPU X s vs host-CPU Y s,
-same code" can be recorded in VALIDATION.md next to the existing INS
-7.7 s / 59 s number. Optionally also runs the 16-D configuration.
+with JAX pinned to the host CPU backend, so "GPU X s vs host-CPU Y s,
+same code" can be recorded beside a GPU run of the same config.
+Optionally also runs the 16-D configuration.
 
 Usage: python benchmarks/cpu_baseline.py [--dims 2] [--nlive 1000]
 """

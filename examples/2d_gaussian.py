@@ -34,7 +34,7 @@ class GaussianModel(Model):
             log_l += norm.logpdf(x[n])
         return log_l
 
-    # Optional TPU fast path: batched, jittable likelihood.
+    # Optional device fast path: batched, jittable likelihood.
     def jax_log_likelihood(self, x):
         import jax.numpy as jnp
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Using nessai_tpu from bilby (plugin-style).
 
-TPU-native analogue of the reference's ``examples/bilby_example.py``.
+JAX analogue of the reference's ``examples/bilby_example.py``.
 If bilby is installed, this runs through ``bilby.run_sampler`` exactly
 like the reference (the plugin contract — names/bounds from the prior
 dict, a scalar dict-style likelihood, kwargs passed through — is the

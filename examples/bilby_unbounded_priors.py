@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Using nessai_tpu from bilby with unbounded (Gaussian) priors.
 
-TPU-native analogue of the reference's
+JAX analogue of the reference's
 ``examples/bilby_unbounded_priors.py``: Gaussian priors have no bounds,
 so the default rescale-to-bounds reparameterisation cannot be used —
 the 'Rescale'/'zscore' reparameterisation (constant or data-estimated

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """GW example with the importance nested sampler.
 
-TPU-native analogue of the reference's ``examples/gw/ins_gw_example.py``
+JAX analogue of the reference's ``examples/gw/ins_gw_example.py``
 (bilby + lalsuite, INS sampler): the same frequency-domain inspiral
 injection as ``basic_gw_example.py``, sampled with
 ``importance_nested_sampler=True``. The INS trains one flow per level

@@ -4,7 +4,7 @@
 Stand-in for the reference's lalsuite-based GW examples
 (``examples/gw/``): a frequency-evolving sinusoid ("chirp") injected into
 Gaussian noise, recovered with a fully jitted, batched likelihood that
-runs on the TPU (and can be sharded over a mesh via
+runs on the device (and can be sharded over a mesh via
 ``nessai_tpu.parallel``). For real lalsuite waveforms, wrap the
 likelihood with ``jax.pure_callback`` or use the numpy path.
 """
@@ -72,7 +72,7 @@ class ToyCBCModel(Model):
 
     def jax_log_likelihood(self, x):
         """Batched, jitted likelihood: the whole [batch, n_samples]
-        waveform bank is one MXU-friendly device program."""
+        waveform bank is one device program."""
         amp, f0, fdot, phi0, tau = (x[:, i : i + 1] for i in range(5))
         t = _t_jax[None, :]
         phase = 2 * jnp.pi * (f0 * t + 0.5 * fdot * t**2) + phi0

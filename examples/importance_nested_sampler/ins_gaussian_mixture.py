@@ -9,7 +9,6 @@ from nessai_tpu.model import Model
 from nessai_tpu.utils import configure_logger
 
 output = "./outdir/ins_gaussian_mixture/"
-logger = configure_logger(output=output)
 
 
 class GaussianMixture(Model):
@@ -46,6 +45,7 @@ class GaussianMixture(Model):
 
 
 if __name__ == "__main__":
+    logger = configure_logger(output=output)
     fs = FlowSampler(
         GaussianMixture(2),
         output=output,

@@ -2,7 +2,7 @@
 """Likelihood parallelisation — mirrors
 ``examples/parallelisation_example.py``.
 
-Three options, in order of preference on TPU:
+Three options, in order of preference on an accelerator:
 1. a JAX likelihood (``jax_log_likelihood``) — batched, jitted, and
    shardable over a device mesh (``nessai_tpu.parallel``);
 2. a vectorised numpy likelihood (auto-detected);

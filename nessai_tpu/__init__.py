@@ -1,12 +1,12 @@
-"""nessai-tpu: TPU-native nested sampling with normalising flows.
+"""nessai-tpu: nested sampling with normalising flows in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``mj-will/nessai`` (nested sampling with artificial intelligence): a
 standard nested sampler and an importance nested sampler whose proposal
 distributions are normalising flows trained on the current live points.
 
 The compute path (flows, training, latent sampling, rejection weights) is
-pure JAX — jitted, vmapped, and shardable over a TPU mesh — while the
+pure JAX — jitted, vmapped, and shardable over a device mesh — while the
 control plane (the nested-sampling loop, checkpointing, plotting) runs on
 the host over NumPy structured arrays, matching the reference API.
 """

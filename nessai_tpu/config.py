@@ -1,7 +1,7 @@
 """Global configuration for nessai-tpu.
 
 Mirrors the role of the reference's global config dataclasses
-(``nessai/config.py:22-165``) but adds TPU/JAX-specific knobs (device dtype,
+(``nessai/config.py:22-165``) but adds JAX-specific knobs (device dtype,
 default mesh axis names).
 
 The singletons at the bottom are mutable at runtime, exactly like the
@@ -153,7 +153,7 @@ class GeneralConfig(_BaseConfig):
 
 @dataclass
 class ComputeConfig(_BaseConfig):
-    """TPU/JAX compute configuration (no reference analogue; replaces the
+    """JAX compute configuration (no reference analogue; replaces the
     torch ``device_tag``/``pytorch_threads`` plumbing,
     ``nessai/flowmodel/base.py:163-173``)."""
 
@@ -163,12 +163,6 @@ class ComputeConfig(_BaseConfig):
     data_axis: str = "data"
     #: Whether to jit host-facing flow ops (disable for debugging).
     jit: bool = True
-    #: Use the Pallas TPU kernels (ops/) inside the bijectors. Only valid
-    #: on TPU backends; leave False on CPU. Default False BY MEASUREMENT:
-    #: at nested-sampling shapes (dims <= 32, batch <= 16k) the flow
-    #: programs are dispatch-bound (~0.1 ms) and XLA matches Pallas
-    #: within noise — see VALIDATION.md "XLA vs Pallas" (round 3).
-    use_pallas: bool = False
 
 
 livepoints = LivepointsConfig()

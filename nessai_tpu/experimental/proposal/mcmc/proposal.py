@@ -5,7 +5,7 @@ Reference: ``nessai/experimental/proposal/mcmc/proposal.py:19`` (populate
 ``:93-233``).
 
 All walkers step together: each MCMC iteration is one batched flow pass +
-one batched likelihood call — ideal for the TPU (no per-walker python).
+one batched likelihood call — no per-walker python.
 """
 
 import datetime

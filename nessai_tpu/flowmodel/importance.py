@@ -4,7 +4,7 @@ Reference: ``nessai/flowmodel/importance.py:22`` — a list of flows, one
 per INS level, with ``add_new_flow`` (copy-or-fresh), ``log_prob_all``
 across flows, per-level sampling and per-level weight files.
 
-TPU-first design: every level shares ONE static flow architecture, so the
+Design: every level shares ONE static flow architecture, so the
 levels are just parameter pytrees. ``log_prob_all`` stacks them and
 ``vmap``s a single jitted log-prob over the parameter axis — one fused
 device program for all levels, instead of the reference's python loop

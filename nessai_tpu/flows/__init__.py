@@ -1,4 +1,4 @@
-"""TPU-native normalising flows. Reference: ``nessai/flows/``."""
+"""Normalising flows in JAX. Reference: ``nessai/flows/``."""
 
 from .base import Flow
 from .bijectors import (

@@ -1,4 +1,4 @@
-"""Functional bijectors for TPU-native normalising flows.
+"""Functional bijectors for JAX normalising flows.
 
 Each bijector is a lightweight *static* object (hashable config only) with
 three pure functions over a parameter pytree::
@@ -189,29 +189,6 @@ class AffineCoupling(Bijector):
         s = self.scale_limit * jnp.tanh(raw_s / self.scale_limit)
         return s, t
 
-    def _use_pallas(self, x) -> bool:
-        from .. import config as _config
-
-        return (
-            _config.compute.use_pallas
-            and not self.volume_preserving
-            and x.ndim == 2
-        )
-
-    def _pallas_transform(self, params, x, context, inverse, rng):
-        """Fused Pallas kernel path (clamp + affine + log-det reduction
-        in one VMEM-resident kernel; see ops/coupling_pallas.py) with an
-        autodiff backward so it also serves the training path."""
-        from ..ops.coupling_pallas import affine_coupling_pallas_vjp
-
-        x_id = x[..., list(self.identity_idx)]
-        x_tr = x[..., list(self.transform_idx)]
-        raw_s, t = self._raw_scale_shift(params, x_id, context, rng)
-        z_tr, log_det = affine_coupling_pallas_vjp(
-            x_tr, raw_s, t, inverse, float(self.scale_limit)
-        )
-        return self._scatter(x_id, z_tr, x.dtype), log_det
-
     def _scatter(self, x_id, x_tr, dtype):
         out = jnp.zeros(x_id.shape[:-1] + (self.dim,), dtype)
         out = out.at[..., list(self.identity_idx)].set(x_id)
@@ -219,8 +196,6 @@ class AffineCoupling(Bijector):
         return out
 
     def forward(self, params, x, context=None, rng=None):
-        if self._use_pallas(x):
-            return self._pallas_transform(params, x, context, False, rng)
         x_id = x[..., list(self.identity_idx)]
         x_tr = x[..., list(self.transform_idx)]
         s, t = self._scale_shift(params, x_id, context, rng)
@@ -229,8 +204,6 @@ class AffineCoupling(Bijector):
         return self._scatter(x_id, z_tr, x.dtype), log_det
 
     def inverse(self, params, z, context=None, rng=None):
-        if self._use_pallas(z):
-            return self._pallas_transform(params, z, context, True, rng)
         z_id = z[..., list(self.identity_idx)]
         z_tr = z[..., list(self.transform_idx)]
         s, t = self._scale_shift(params, z_id, context, rng)
@@ -313,27 +286,15 @@ class RQSCoupling(Bijector):
         x_id = x[..., list(self.identity_idx)]
         x_tr = x[..., list(self.transform_idx)]
         w, h, d = self._spline_params(params, x_id, context, rng)
-        from .. import config as _config
-
-        if _config.compute.use_pallas and self.tails == "linear":
-            # Pallas TPU kernel with an autodiff backward (see
-            # nessai_tpu/ops/rqs_pallas.py); enable via
-            # nessai_tpu.config.compute.use_pallas = True on TPU.
-            from ..ops.rqs_pallas import rqs_pallas_vjp
-
-            z_tr, log_det = rqs_pallas_vjp(
-                x_tr, w, h, d, inverse, float(self.tail_bound)
-            )
-        else:
-            z_tr, log_det = rational_quadratic_spline(
-                x_tr,
-                w,
-                h,
-                d,
-                inverse=inverse,
-                tail_bound=self.tail_bound,
-                tails=self.tails,
-            )
+        z_tr, log_det = rational_quadratic_spline(
+            x_tr,
+            w,
+            h,
+            d,
+            inverse=inverse,
+            tail_bound=self.tail_bound,
+            tails=self.tails,
+        )
         return self._scatter(x_id, z_tr, x.dtype), jnp.sum(log_det, axis=-1)
 
     def forward(self, params, x, context=None, rng=None):
@@ -385,8 +346,9 @@ class LULinear(Bijector):
 
     def forward(self, params, x, context=None, rng=None):
         L, U = self._lu(params)
-        # HIGHEST precision: TPU matmuls default to ~bf16 precision, which
-        # would break exact invertibility against the triangular solves.
+        # HIGHEST precision: a default-precision f32 matmul may run in a
+        # reduced-precision mode (TF32 on recent GPUs), which would break
+        # exact invertibility against the triangular solves.
         W = jnp.matmul(L, U, precision=jax.lax.Precision.HIGHEST)
         z = jnp.matmul(x, W.T, precision=jax.lax.Precision.HIGHEST)
         z = z + params["bias"]

@@ -6,8 +6,8 @@ plain pytrees, ``apply`` is a pure function, so conditioners can be jitted,
 vmapped over batches, and vmapped over *stacked parameter pytrees* (used by
 the importance sampler's multi-flow ``log_prob_all``).
 
-Shapes are tiny (dims ~ 2-30, hidden ~ tens) with large batches, so the MXU
-sees ``[batch, hidden] @ [hidden, hidden]`` matmuls; XLA fuses the
+Shapes are tiny (dims ~ 2-30, hidden ~ tens) with large batches, so the
+device sees ``[batch, hidden] @ [hidden, hidden]`` matmuls; XLA fuses the
 activation chains.
 """
 

@@ -3,14 +3,13 @@
 Samples are NumPy structured arrays on the host control plane (so user
 ``log_prior``/``log_likelihood`` receive field-addressable arrays, as in the
 reference ``nessai/livepoint.py``), and dense ``[n, dims]`` float arrays on
-the TPU data plane. This module provides conversions between the two plus
+the device data plane. This module provides conversions between the two plus
 dict/DataFrame codecs.
 """
 
 from typing import List
 
 import numpy as np
-import pandas as pd
 
 from . import config
 
@@ -210,9 +209,7 @@ def live_points_to_dict(live_points, names=None) -> dict:
     return {n: np.asarray(live_points[n]) for n in names}
 
 
-def dataframe_to_live_points(
-    df: pd.DataFrame, non_sampling_parameters: bool = True
-):
+def dataframe_to_live_points(df, non_sampling_parameters: bool = True):
     """Reference: ``nessai/livepoint.py:332``."""
     return dict_to_live_points(
         {c: df[c].to_numpy() for c in df.columns},
@@ -220,8 +217,10 @@ def dataframe_to_live_points(
     )
 
 
-def live_points_to_dataframe(live_points, names=None) -> pd.DataFrame:
+def live_points_to_dataframe(live_points, names=None):
     """Reference: ``nessai/livepoint.py:350``."""
+    import pandas as pd
+
     return pd.DataFrame(live_points_to_dict(live_points, names=names))
 
 

@@ -1,4 +1,4 @@
-"""Multi-device (ICI mesh) utilities."""
+"""Multi-device (mesh) utilities."""
 
 from .mesh import (
     data_sharding,

@@ -1,5 +1,5 @@
 """Device-mesh utilities: data-parallel training and sharded batch
-evaluation over ICI.
+evaluation over several devices.
 
 This replaces the reference's only distribution mechanism — the
 ``multiprocessing.Pool`` likelihood map (``nessai/utils/multiprocessing.py:

@@ -7,7 +7,7 @@ determination via entropy/quantile of the logW CDF (``:856-982``),
 meta-proposal weight bookkeeping (``:1444-1496``), the final unbiased
 redraw (``draw_final_samples:1633``) and bootstrap error estimation.
 
-TPU notes: the heavy step per level — the new flow's log-prob over every
+Device notes: the heavy step per level — the new flow's log-prob over every
 stored sample and ``log_prob_all`` for redraws — runs as single vmapped
 device programs via :class:`ImportanceFlowModel`.
 """
@@ -1638,7 +1638,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
                 draw_final_samples_time=(
                     self.draw_final_samples_time.total_seconds()
                 ),
-                # Run-shape honesty (TPU addition): the number of
+                # Run-shape honesty (not in the reference): the number of
                 # proposal levels the adaptive construction ran. Wall
                 # time scales ~quadratically with this seed-dependent
                 # count (r = 0.94 across seeds, VALIDATION.md), so it is

@@ -1,7 +1,7 @@
 """Batched / pooled function evaluation.
 
 This is the likelihood-evaluation backend, mirroring the reference's
-``nessai/utils/multiprocessing.py``. On TPU the preferred path is
+``nessai/utils/multiprocessing.py``. On an accelerator the preferred path is
 *vectorisation* (a batched, ideally JAX-jittable, likelihood). The
 ``multiprocessing.Pool`` path is retained for scalar pure-Python
 likelihoods, using the same fork-shared global-model trick as the

@@ -3,7 +3,7 @@
 The reference tracks wall-clock counters only (``sampling_time``,
 ``training_time``, ``population_time``, ``likelihood_evaluation_time``
 — ``nessai/samplers/base.py:108-127``, ``nessai/model.py:71-79``);
-those all exist here too. This module adds the TPU-side complement:
+those all exist here too. This module adds the device-side complement:
 a context manager around ``jax.profiler`` so a sampling region can be
 captured and inspected in TensorBoard/XProf (per SURVEY §5: "same
 counters + optional jax profiler hooks").

@@ -1,7 +1,7 @@
 """Thread configuration.
 
 The reference configures torch intra-op threads
-(``nessai/utils/threading.py:13``). On the JAX/TPU stack the analogue is
+(``nessai/utils/threading.py:13``). On the JAX stack the analogue is
 host-side XLA CPU threading, which is controlled via env vars before
 process start; this function therefore only records the request and warns
 if it cannot be applied.

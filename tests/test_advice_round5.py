@@ -112,59 +112,6 @@ def test_duck_typed_plugin_accepted(monkeypatch):
     assert len(reg) == 1
 
 
-def test_cpu_cache_filter_rejects_unexpected_signature(monkeypatch):
-    """If the private jax cache hooks change shape, the filter must
-    refuse to install (callers then fall back to the high persistence
-    threshold) rather than silently mis-wrap them."""
-    from jax._src import compiler as _jc
-
-    from nessai_tpu.utils.compilation import (
-        _exclude_cpu_programs_from_cache,
-    )
-
-    def reordered(cache_key, module_name, backend_kind, executor):
-        raise AssertionError("should never be called")
-
-    monkeypatch.setattr(_jc, "_nessai_tpu_cpu_cache_filter", False, raising=False)
-    monkeypatch.setattr(_jc, "_cache_read", reordered)
-    monkeypatch.setattr(_jc, "_cache_write", reordered)
-    assert _exclude_cpu_programs_from_cache() is False
-    # and the hooks were left untouched
-    assert _jc._cache_read is reordered
-
-
-def test_cpu_cache_filter_installs_on_expected_signature(monkeypatch):
-    from jax._src import compiler as _jc
-
-    from nessai_tpu.utils.compilation import (
-        _exclude_cpu_programs_from_cache,
-    )
-
-    calls = []
-
-    def ok_read(module_name, cache_key, compile_options, backend):
-        calls.append(("read", backend))
-        return "exe", 1.0
-
-    def ok_write(cache_key, compile_time_secs, module_name, backend):
-        calls.append(("write", backend))
-
-    monkeypatch.setattr(_jc, "_nessai_tpu_cpu_cache_filter", False, raising=False)
-    monkeypatch.setattr(_jc, "_cache_read", ok_read)
-    monkeypatch.setattr(_jc, "_cache_write", ok_write)
-    assert _exclude_cpu_programs_from_cache() is True
-    cpu = SimpleNamespace(platform="cpu")
-    tpu = SimpleNamespace(platform="tpu")
-    # cpu programs are filtered from both directions
-    assert _jc._cache_read("m", "k", None, cpu) == (None, None)
-    assert _jc._cache_write("k", 1.0, "m", cpu) is None
-    assert calls == []
-    # tpu programs pass through
-    assert _jc._cache_read("m", "k", None, tpu) == ("exe", 1.0)
-    _jc._cache_write("k", 1.0, "m", tpu)
-    assert calls == [("read", tpu), ("write", tpu)]
-
-
 def test_device_populate_cache_not_pickled():
     """The device-populate eligibility verdict is derived from the bound
     model and must be re-derived after resume (the model may differ)."""

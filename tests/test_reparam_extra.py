@@ -220,13 +220,16 @@ def test_reparameterisation_dict_duplicate_and_entry_points():
     ):
         d.add_external_reparameterisations("group")
     assert "ext-null" in d
-    # duplicate via entry point
+    # duplicate via entry point: the later entry-point group wins
+    replacement = KnownReparameterisation(
+        "ext-null", NullReparameterisation, {"later": True}
+    )
     with patch(
         "nessai_tpu.utils.entry_points.get_entry_points",
-        return_value={"a": FakeEP(known)},
+        return_value={"a": FakeEP(replacement)},
     ):
-        with pytest.raises(ValueError, match="already registered"):
-            d.add_external_reparameterisations("group")
+        d.add_external_reparameterisations("group")
+    assert d["ext-null"] is replacement
 
 
 def test_get_reparameterisation_class_and_invalid():

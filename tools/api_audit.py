@@ -34,7 +34,7 @@ EXPLAINED_NAMES = {
     "last_updated": "plain attribute (training bookkeeping), not a property",
     "optimiser": "optax state lives inside the jitted train step",
     "set_torch_default_dtype": "dtype set via config.compute.dtype",
-    "to": "torch device move; TPU placement is automatic",
+    "to": "torch device move; JAX device placement is automatic",
     "training_config": "plain attribute, not a property",
 }
 EXPLAINED_PARAM_SITES = {
